@@ -4,7 +4,7 @@ Times, via sequential lax.scan chains (no host RTT):
   1. model update      (FK + RNEA + mass matrix + Jacobians + bias)
   2. stack assembly    (task matrices)
   3. hierarchy solve   (2-level ADMM cascade + polish)
-Usage: python bench_breakdown.py [--robot humanoid] [--cpu]
+Needs a GPU. Usage: python bench_breakdown.py [--robot humanoid]
 """
 import argparse
 import dataclasses
@@ -13,7 +13,7 @@ import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from qppvm_tpu.device import enable_compile_cache, require_gpu
 
 
 def _chain(fn, carry0, n=100, reps=3):
@@ -35,10 +35,9 @@ def _chain(fn, carry0, n=100, reps=3):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--robot", default="humanoid")
-    ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+    devices = require_gpu()
+    enable_compile_cache()
 
     import jax.numpy as jnp
     from qppvm_tpu.model import dynamics, zoo
@@ -84,9 +83,8 @@ def main():
 
     # full step, chained through STATE: tau feeds back into (q, qd) via a
     # cheap integrator, so model update + stack assembly CANNOT be hoisted
-    # out of the scan. (Round-2 flaw: a warm-only chain leaves state/refs as
-    # scan constants and XLA hoists everything that depends only on them —
-    # measured +15% step time on CPU once the feedback is added.)
+    # out of the scan (a warm-only chain leaves state/refs as scan constants
+    # and XLA hoists everything that depends only on them).
     def full_fn(carry):
         st, w = carry
         tau, w2, _ = plugin._step_impl(st, refs, w)
@@ -99,11 +97,11 @@ def main():
 
     print(json.dumps({
         "robot": args.robot,
-        "model_update_ms": round(t_model, 4),
-        "stack_assembly_ms": round(t_asm, 4),
-        "hierarchy_solve_ms": round(t_solve, 4),
-        "full_step_ms": round(t_full, 4),
-        "device": str(jax.devices()[0]),
+        "model_update_ms": t_model,
+        "stack_assembly_ms": t_asm,
+        "hierarchy_solve_ms": t_solve,
+        "full_step_ms": t_full,
+        "device": devices[0].device_kind,
     }))
 
 

@@ -1,13 +1,10 @@
 """Multi-device scaling benchmark (BASELINE: >= 80% linear scaling).
 
 Shards the batched humanoid WBC step over a ``rollout`` mesh of 1..N devices
-and reports throughput + parallel efficiency. On the single-TPU bench host
-this runs on N virtual CPU devices (the driver's multi-chip dryrun covers
-compile+execute of the same shardings); on a real slice the identical code
-rides ICI.
+and reports throughput + parallel efficiency over the GPUs of one host.
 
-Prints one JSON line per mesh size, then a summary line.
-Usage: python bench_scaling.py [--devices 8] [--batch 256] [--cpu]
+Prints one JSON line per mesh size, then a summary line. Needs GPUs.
+Usage: python bench_scaling.py [--batch 256]
 """
 import argparse
 import json
@@ -15,23 +12,15 @@ import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from qppvm_tpu.device import enable_compile_cache, require_gpu
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
-    if args.cpu or len(jax.devices()) < 2:
-        # virtual multi-device CPU mesh (the standard fake-multi-chip trick)
-        import os
-        if "xla_force_host_platform_device_count" not in os.environ.get(
-                "XLA_FLAGS", ""):
-            os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
-                                       f" --xla_force_host_platform_device_count={args.devices}")
-        jax.config.update("jax_platforms", "cpu")
+    devices = require_gpu()
+    enable_compile_cache()
 
     import dataclasses
 
@@ -80,31 +69,19 @@ def main():
         out.block_until_ready()
         dt = (time.perf_counter() - t0) / reps
         results.append((nd, B / dt))
-        print(json.dumps({"devices": nd, "solves_per_s": round(B / dt, 1)}))
+        print(json.dumps({"devices": nd, "solves_per_s": B / dt}))
 
     base = results[0][1]
     eff = [(nd, r / (base * nd)) for nd, r in results]
     last_nd, last_eff = eff[-1]
-    virtual = jax.devices()[0].platform == "cpu"
-    out = {
+    print(json.dumps({
         "metric": "multi_device_scaling_efficiency",
-        "value": round(last_eff, 3),
+        "value": last_eff,
         "unit": f"fraction_linear@{last_nd}dev",
-        "vs_baseline": round(last_eff / 0.8, 3),
-        "per_device": {str(nd): round(e, 3) for nd, e in eff},
-    }
-    if virtual:
-        # On virtual CPU devices all "devices" share one host's cores, and
-        # the 1-device baseline already uses them all via XLA intra-op
-        # threading — fraction_linear is NOT a statement about ICI scaling.
-        # What this run does validate: the sharded program compiles, runs,
-        # and total throughput still rises with mesh size (no collective
-        # bottleneck in the program structure).
-        out["note"] = ("virtual CPU mesh: shared-core efficiency, not ICI "
-                       "scaling; speedup@%d=%.2fx validates sharding "
-                       "structure only" % (last_nd,
-                                           results[-1][1] / base))
-    print(json.dumps(out))
+        "vs_baseline": last_eff / 0.8,
+        "per_device": {str(nd): e for nd, e in eff},
+        "device": devices[0].device_kind,
+    }))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 // Native real-time runtime: paced executor + lock-free trace ring buffer.
 //
-// TPU-native re-design of the reference's native runtime slice: the XCM RT
+// Re-design of the reference's native runtime slice: the XCM RT
 // executor that calls control_loop() every ~1 ms under Xenomai
 // (/root/reference/cmake/FindXenomai.cmake:17-50,
 //  /root/reference/src/QPPVMPlugin.cpp:308) and the preallocated RT-safe

@@ -1,8 +1,8 @@
-"""qppvm_tpu — a TPU-native whole-body-control (WBC) + MPC framework.
+"""qppvm_tpu — a JAX whole-body-control (WBC) + MPC framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 ADVRHumanoids/qppvm (OpenSoT-style hierarchical QP whole-body control inside a
-1 kHz real-time loop), built TPU-first:
+1 kHz real-time loop), built accelerator-first:
 
 - ``qppvm_tpu.model``    — rigid-body dynamics (FK, Jacobians, RNEA; mass
   matrix via batched J^T I J sums; forward dynamics via matmul-only B^-1)

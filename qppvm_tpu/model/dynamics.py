@@ -7,11 +7,11 @@ inertia matrix behind ``useInertiaMatrix(true)``
 (/root/reference/src/QPPVMPlugin.cpp:117,139), and floating-base support
 (``setFloatingBaseState``, /root/reference/src/ForceAcc.cpp:274).
 
-TPU-first notes: the RNEA sweep is a trace-time-unrolled recursion of tiny
-fused VPU ops (cheap, latency-bound); the mass matrix deliberately uses the
-dense world-frame form  B = sum_i J_i^T I_i J_i  — O(n^2) flops but pure
-batched matmul, which the MXU executes faster than a sequential CRBA would
-run on scalar units, and it vmaps cleanly over rollout batches.
+Design notes: the RNEA sweep is a trace-time-unrolled recursion of tiny
+fused elementwise ops (cheap, latency-bound); the mass matrix deliberately
+uses the dense world-frame form  B = sum_i J_i^T I_i J_i  — O(n^2) flops but
+pure batched matmul instead of a sequential CRBA recursion, and it vmaps
+cleanly over rollout batches.
 
 Generalized-vector layout (floating): ``[base(6, body-frame, angular-first);
 joints(nj)]`` for velocities u, accelerations udot and generalized forces.
@@ -139,7 +139,7 @@ def _internal_jacobians(model: RobotModel, kin: kinematics.KinData):
 def mass_matrix(model: RobotModel, state: RobotState,
                 kin: Optional[kinematics.KinData] = None) -> jax.Array:
     """(nv, nv) joint-space inertia matrix B(q) via the dense world-frame form
-    B = sum_i J_i^T I_i^w J_i  (batched matmuls -> MXU)."""
+    B = sum_i J_i^T I_i^w J_i  (batched matmuls)."""
     if kin is None:
         kin = kinematics.fk(model, state)
     J = _internal_jacobians(model, kin)                       # (nj, 6, nv)
@@ -171,8 +171,8 @@ def forward_dynamics(model: RobotModel, state: RobotState, tau: jax.Array,
     """udot = B^{-1} (S^T tau + tau_ext - h). ``tau``: (nj,) actuated torques.
 
     ``method="ns"`` (default): matmul-only Newton-Schulz inverse apply +
-    iterative refinement — the TPU hot path (MPC rollouts vmap this
-    thousands-wide; a Cholesky here would serialize on the scalar units).
+    iterative refinement — the batched hot path (MPC rollouts vmap this
+    thousands-wide).
     ``method="chol"`` is the exact CPU/reference path.
 
     ``B``: precomputed mass matrix at ``state`` (e.g. the control tick's
@@ -368,7 +368,7 @@ def compute_model_data(model: RobotModel, state: RobotState,
     B = mass_matrix(model, state, kin=kin)
     h = nonlinear_term(model, state, kin=kin)
     if need_binv:
-        # matmul-only SPD inverse (opt/linalg.py) — no LU on the TPU path
+        # matmul-only SPD inverse (opt/linalg.py) — no LU on the hot path
         from qppvm_tpu.opt import linalg as _linalg
         Binv = _linalg.spd_inverse(B, method="ns", iters=18)
     else:

@@ -6,11 +6,11 @@ reference exercises: ``getPose`` (/root/reference/src/QPPVMPlugin.cpp:272,287),
 (/root/reference/src/ForceAcc.cpp:164), plus the Jdot*qd ("bias acceleration")
 term needed by acceleration-level Cartesian tasks.
 
-TPU-first design: the per-joint FK recursion is unrolled at trace time (static
+Design: the per-joint FK recursion is unrolled at trace time (static
 topology, ~10-40 joints), while everything downstream — Jacobians for *all*
 links, CoM, the mass matrix — is expressed as dense batched matmul/einsum over
-an ``(nj, ...)`` leading axis so XLA tiles it onto the MXU/VPU and ``vmap``
-adds rollout batching for free.
+an ``(nj, ...)`` leading axis so XLA fuses it into a few batched kernels and
+``vmap`` adds rollout batching for free.
 
 Public conventions: world frame, linear-first twists/wrenches ``[v; w]`` /
 ``[f; n]``. Internal generalized-velocity layout for floating models:

@@ -1,7 +1,7 @@
 """Static-topology robot model and state pytrees.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference delegates all kinematics/dynamics to ``XBot::ModelInterface``
 (RBDL/KDL-backed C++, see /root/reference/src/QPPVMPlugin.cpp:50,65 and
 /root/reference/src/ForceAcc.cpp:43,208,217). Here the model is a *pytree of

@@ -102,7 +102,7 @@ class CentroidalMPC:
         equal share). ``wrench_dim``: the plugin's per-contact wrench size —
         the centroidal plan's 3-vector forces are embedded in the force rows
         of each ``wrench_dim``-wide block so the offset length always
-        matches the ForceReg ref (ADVICE r4 #2)."""
+        matches the ForceReg ref."""
         f_plan = res.U[k].reshape(params.nc, 3)
         g = (jnp.ones(params.nc, f_plan.dtype) if gates is None
              else jnp.asarray(gates, f_plan.dtype))

@@ -1,4 +1,4 @@
-"""iLQR / DDP trajectory optimizer — TPU-first.
+"""iLQR / DDP trajectory optimizer, batched for XLA.
 
 The north star's "DDP-style MPC" layer (greenfield; the reference plans
 nothing). Design for XLA:
@@ -6,11 +6,11 @@ nothing). Design for XLA:
 - **Fixed iteration counts** everywhere (outer iterations, backward pass,
   line-search candidates) — one static program, no data-dependent shapes.
 - **Backward pass** is a ``lax.scan`` over the horizon; the Q_uu inverse is
-  Newton-Schulz (matmul-only, opt/linalg.py) — no factorization on TPU.
+  Newton-Schulz (matmul-only, opt/linalg.py) — no factorization.
 - **Parallel line search**: all step sizes are rolled out simultaneously
   under ``vmap`` and the argmin-cost candidate is selected — trading a few
   extra (cheap, batched) rollouts for zero sequential trial-and-error,
-  which is exactly the TPU trade.
+  which is the trade a batched accelerator favours.
 - Levenberg-Marquardt regularization adapts across the fixed outer
   iterations via carried state (no while_loop restarts).
 

@@ -4,13 +4,13 @@ BASELINE config 5: "4096 domain-randomized contact/disturbance rollouts
 batched per step, sharded across a multi-host pod slice". Greenfield (the
 reference is single-robot single-thread; SURVEY.md §2c).
 
-TPU mapping:
+Device mapping:
 - rollouts  -> leading batch axis, vmap + NamedSharding over mesh axis
   "rollout" (DP). Each rollout's QP chain stays on one chip (design decision
   recorded in SURVEY §2c: no TP at 30-60-wide matrices).
 - horizon   -> lax.scan inside each rollout (sequential by physics).
 - reduction -> MPPI softmax weights: global min/logsumexp over the batch;
-  under jit+GSPMD these lower to psum/all-reduce collectives riding ICI.
+  under jit+GSPMD these lower to all-reduce collectives (NCCL over NVLink).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from qppvm_tpu.mpc.rollout import (RolloutConfig, default_cost,
                                    make_rollout_fn, make_swing_primitive)
 from qppvm_tpu.plugins.force_acc import ForceAccPlugin
+from qppvm_tpu.precision import f32_matmuls
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +35,7 @@ class MPPIConfig:
     lambda_: float = 1.0
     noise_std: float = 0.15
     push_std: float = 0.0     # domain randomization: random base pushes (N)
-    # Domain randomization beyond pushes (VERDICT r2 missing #2): per-
+    # Domain randomization beyond pushes: per-
     # rollout true-robot mass scale (lognormal-ish, the CONTROLLER keeps
     # the nominal model) and ground-friction scale (uniform in
     # [1 - mu_scale_range, 1]). 0 disables.
@@ -83,6 +84,7 @@ class SamplingMPC:
     def init_plan(self, dtype=jnp.float32):
         return jnp.zeros((self.mppi.horizon, self.mppi.nu), dtype)
 
+    @f32_matmuls
     def _step_impl(self, key, state, refs, warm, U_nom, theta_nom=None):
         m = self.mppi
         K = m.n_samples

@@ -92,7 +92,6 @@ def solve(
     pdip_iters: int = 25,
     per_level_opts: Optional[Sequence[Optional[dict]]] = None,
     eq_elim: bool = True,
-    backend: str = "xla",
 ):
     """Solve the cascade. Returns (x, warm_states, infos).
 
@@ -130,16 +129,6 @@ def solve(
     them with a boosted rho. Exact locks — closer to qpOASES cascade
     semantics — and an orders-of-magnitude better-conditioned ADMM matrix.
 
-    ``backend`` (static): "xla" runs each level through opt/qp.py;
-    "pallas" routes vmapped level solves into the fused VMEM-resident
-    whole-solve kernel (opt/pallas_qp.py — the north-star batched Pallas
-    QP replacing the reference's qpOASES backend,
-    /root/reference/src/QPPVMPlugin.cpp:21,188). The kernel covers the
-    deployed warm-started profiles (rho_updates=0, no polish, NS
-    inverses); any level outside that scope — or called without a warm
-    state, or with zero inequality rows — silently falls back to the XLA
-    path, so "pallas" is always safe to request.
-
     ``per_level_opts`` overrides solver keywords for individual cascade
     levels — the analog of ``QPOases_sot::setOptions(level, opts)`` /
     ``PL_LOW`` (/root/reference/src/QPPVMPlugin.cpp:190-196): entry k (a
@@ -169,7 +158,7 @@ def solve(
                        scale_iters=scale_iters,
                        pinv_ns_iters=pinv_ns_iters,
                        method=method, pdip_iters=pdip_iters,
-                       eq_elim=eq_elim, backend=backend)
+                       eq_elim=eq_elim)
 
     for k, lv in enumerate(stack.levels):
         opts = dict(global_opts)
@@ -209,7 +198,6 @@ def solve(
         lvl_method = opts.pop("method")
         lvl_pdip_iters = opts.pop("pdip_iters")
         lvl_eq_elim = opts.pop("eq_elim")
-        lvl_backend = opts.pop("backend")
         if lvl_eq_elim and lvl_method != "pdip":
             # row order is [C; I(box); locked...]: the stack's structural
             # equalities lead C, the cascade's equality locks trail.
@@ -223,23 +211,7 @@ def solve(
             st_new = dataclasses.replace(
                 base_st, x=x, z=jnp.clip(A_full @ x, l_full, u_full))
         else:
-            solved = False
-            if lvl_backend == "pallas" and st is not None:
-                m_full = A_full.shape[0]
-                h_eq = opts.get("n_eq_head", 0)
-                t_eq = opts.get("n_eq_tail", 0)
-                if (m_full - h_eq - t_eq > 0 and st.Kinv is not None
-                        and st.rho_scale is not None):
-                    from qppvm_tpu.opt import pallas_qp
-                    cfg = pallas_qp.config_from_opts(
-                        opts, n_eq_head=h_eq, n_eq_tail=t_eq,
-                        iters=opts["iters"])
-                    if cfg is not None:
-                        solver = pallas_qp.make_level_solver(cfg)
-                        x, st_new, info = solver(prob, st)
-                        solved = True
-            if not solved:
-                x, st_new, info = qp.solve(prob, st, **opts)
+            x, st_new, info = qp.solve(prob, st, **opts)
         new_states.append(st_new)
         infos.append(info)
 

@@ -1,8 +1,9 @@
-"""Matmul-only linear algebra for the TPU hot path.
+"""Matmul-only linear algebra for the batched hot path.
 
-Triangular solves and pivoted LU are sequential recurrences — they run on
-the TPU's scalar/vector units and stall the MXU. Every factorization in the
-QP hot loop is replaced here by Newton-Schulz (NS) iteration:
+Triangular solves and pivoted LU are sequential recurrences that batch
+poorly over thousands of small problems. Every factorization in the QP hot
+loop is replaced here by Newton-Schulz (NS) iteration (a design choice not
+yet measured against batched Cholesky on the GPU):
 
     X_{k+1} = X_k (2I - K X_k)
 
@@ -72,7 +73,7 @@ def ns_warm_inverse(K: jax.Array, X_guess: jax.Array,
     Mid-iteration blow-up (a warm seed that passed the contraction guard
     but overflows in float32) is handled INSIDE the iteration: any step
     producing a non-finite iterate resets to the Jacobi-prescaled cold seed
-    and the remaining budget refines from there (ADVICE r3 #5 — the
+    and the remaining budget refines from there (the
     fallback is never the raw, un-iterated preconditioner unless the
     blow-up happens on the very last step or ``K`` itself is non-finite,
     in which case no inverse exists to return). Costs one cheap reduction

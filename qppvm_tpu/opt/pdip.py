@@ -9,7 +9,7 @@ data-dependent control flow), for
 Rows with u - l < tol are treated as equalities (dual nu), the rest get
 two-sided log barriers (slacks sl = Ax-l >= 0, su = u-Ax >= 0). Each
 iteration solves one regularized KKT system via the matmul-only Schur path
-(opt/linalg.py) — no factorizations, TPU-friendly, just more expensive per
+(opt/linalg.py) — no factorizations, batch-friendly, just more expensive per
 iteration than ADMM (quadratic convergence: ~12-18 iterations to 1e-8).
 
 Use when polish-grade accuracy is required without warm starts (e.g. cold

@@ -5,7 +5,7 @@ Replaces the qpOASES dense active-set backend of the reference
 data-dependent control flow — hostile to XLA; instead we use first-order ADMM
 whose per-iteration work is *matmul only* (one KKT-inverse apply + one
 constraint matvec), so a whole solve is a fixed-shape fused XLA loop that
-vmaps across thousands of rollout QPs and feeds the MXU.
+vmaps across thousands of rollout QPs as batched matmuls.
 
     minimize   1/2 x^T P x + q^T x
     subject to l <= A x <= u        (equalities: l == u rows)
@@ -51,7 +51,7 @@ class QPState:
     """Warm-start state carried across control ticks. Besides the ADMM
     iterates, carries the previous KKT inverse: at 1 kHz the KKT matrix
     changes slowly, so Newton-Schulz re-converges from it in a handful of
-    matmuls — the TPU-native analog of qpOASES hot-start factor reuse."""
+    matmuls — the batched analog of qpOASES hot-start factor reuse."""
 
     x: jax.Array  # (n,)
     z: jax.Array  # (m,)
@@ -332,8 +332,8 @@ def solve(
         else:
             K = P + sigma * I_n + (A.T * rho_v) @ A
         # Explicit inverse: K is strongly SPD (sigma shift); iterations then
-        # are pure matvecs (MXU-friendly under vmap). inv_method="ns" keeps
-        # even the inversion matmul-only (no triangular solves on TPU).
+        # are pure matvecs (batched under vmap). inv_method="ns" keeps even
+        # the inversion matmul-only (no triangular solves).
         if (assume_warm_kinv and chunk_i == 0 and Kinv_warm is not None
                 and inv_method == "ns"):
             # Hot-start from the last tick's inverse: at 1 kHz the KKT matrix

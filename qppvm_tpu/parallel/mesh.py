@@ -4,7 +4,7 @@ The reference is single-robot single-thread (no DP/TP/PP, no NCCL/MPI —
 verified in SURVEY.md §2c); the parallel dimensions here are greenfield,
 designed for the BASELINE north star: batch MPC rollouts sharded over a
 ``rollout`` mesh axis (DP over scenarios), cost reductions via XLA
-collectives riding ICI, DCN bootstrap via ``jax.distributed``.
+collectives over NVLink, multi-host bootstrap via ``jax.distributed``.
 
 Design decisions recorded per SURVEY.md §2c:
 - TP/PP: not used — per-rollout WBC matrices are 30-60 wide; a whole QP stays

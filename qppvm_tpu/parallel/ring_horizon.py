@@ -2,14 +2,14 @@
 
 The reference has no sequences or horizons (SURVEY.md §5 "long-context":
 it is a single-timestep QP per 1 kHz tick — /root/reference/src/
-QPPVMPlugin.cpp:308); the MPC layer's horizon is the TPU analog of long
+QPPVMPlugin.cpp:308); the MPC layer's horizon is this system's analog of long
 context. Normally the horizon stays local to a chip (``lax.scan`` per
 rollout — SURVEY.md §2c) and scale-out is across the *rollout* batch. This
 module is the growth path for horizons that outgrow one chip: shard the
 time axis over a mesh axis and recover the sequential dynamics by
 **multiple shooting**.
 
-How it works (classic temporal decomposition, TPU-native):
+How it works (classic temporal decomposition):
 
 - Split the horizon ``T`` into ``S`` contiguous segments, one per device on
   mesh axis ``axis``. Each device holds its segment's controls and a *guess*
@@ -24,7 +24,7 @@ How it works (classic temporal decomposition, TPU-native):
   come from the previous plan and 1-2 sweeps give small defects — that is the
   payoff: wall-clock per sweep is T/S steps instead of T.
 
-Communication is one carry-sized ``ppermute`` per sweep, riding ICI — the
+Communication is one carry-sized ``ppermute`` per sweep — the
 full trajectory is never gathered; outputs stay sharded over time.
 """
 from __future__ import annotations

@@ -124,17 +124,18 @@ class ForceAccPlugin:
         self.iters = iters
         self.contact_links = tuple(contact_links)
         self.waist_link = waist_link
-        # RT-loop solver knobs; override per deployment (swept in
-        # tools/tune_solver.py on real TPU)
-        # polish_rounds=0: measured on TPU (tools/tune_solver.py) the
+        # RT-loop solver knobs; override per deployment (tools/tune_solver.py
+        # sweeps them).
+        # polish_rounds=0: measured with tools/tune_solver.py, the
         # active-set polish is always rejected by its acceptance guard in the
-        # warm-started RT loop (identical residuals) and costs ~30% of the
-        # step; the cold on_start solve keeps full polish for the warm seed.
+        # warm-started RT loop (identical residuals) while it costs a large
+        # share of the step; the cold on_start solve keeps full polish for
+        # the warm seed.
         # rho_updates: 1 by default (robust). rho_updates=0 (single chunk, no
-        # intra-solve rho rebalance -> no cold NS inversion per tick) is 25%
-        # faster and MORE accurate on flat-contact stacks (TPU sweep
-        # 2026-08-19: 42.9k->53.7k solves/s, chained prim res 7.1e-4->2.3e-5)
-        # but FAILS closed-loop on friction-cone/6D-wrench stacks, where the
+        # intra-solve rho rebalance -> no cold NS inversion per tick) is
+        # faster and MORE accurate on flat-contact stacks (chained prim res
+        # 7.1e-4 -> 2.3e-5 in the tools/tune_solver.py sweep) but FAILS
+        # closed-loop on friction-cone/6D-wrench stacks, where the
         # carried rho_scale (clipped <= 1) can never raise rho as the
         # intra-solve rebalance transiently can. Opt in per deployment after
         # validating closed-loop (tools/validate_rt_profile.py).
@@ -174,7 +175,7 @@ class ForceAccPlugin:
         # distribution, tasks/force.py) governs the force nullspace instead
         # of the warm-center random walk that starved stance feet of
         # friction budget in round 2's leg-lift failure. The scale is an
-        # explicit knob (ADVICE r3 #4): raise it toward 1.0 to let the
+        # explicit knob: raise it toward 1.0 to let the
         # proximal term compete with ForceReg, lower it to hand the
         # nullspace entirely to the anchor.
         self.reg_diag = jnp.ones((self.opt.size,), dtype)
@@ -252,7 +253,7 @@ class ForceAccPlugin:
                 # MOMENT rows use the configurable ``moment_box`` (default
                 # +/-(30,30,10)) — a deliberate departure from the
                 # reference's +/-1 Nm, which models near-point feet; flat
-                # soles get their CoP authority from the box (ADVICE r4 #3)
+                # soles get their CoP authority from the box
                 mb = list(moment_box)
                 ub = jnp.asarray([1000.0, 1000.0, 1000.0] + mb)
                 lb = jnp.asarray([-1000.0, -1000.0, fz_min] +
@@ -355,7 +356,7 @@ class ForceAccPlugin:
         stack_data = self.stack.build(self.model, data, state, refs,
                                       nx=self.opt.size, dtype=self.dtype)
         # debug invariant: the rows the solver will eliminate as structural
-        # equalities really are equalities (ADVICE r2 #1); host-side, once
+        # equalities really are equalities; host-side, once
         self.stack.validate(stack_data)
         # Two-phase warm-start seed:
         # 1) cold solve with the proximal CENTERED ON THE EQUAL-SHARE SUPPORT

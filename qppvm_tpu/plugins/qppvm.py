@@ -72,12 +72,13 @@ class QPPVMPlugin:
         self.eps = eps
         self.iters = iters
         self.sine_ref = sine_ref
-        # RT-loop solver knobs; override per deployment (swept in
-        # tools/tune_solver.py on real TPU)
-        # polish_rounds=0: measured on TPU (tools/tune_solver.py) the
+        # RT-loop solver knobs; override per deployment (tools/tune_solver.py
+        # sweeps them).
+        # polish_rounds=0: measured with tools/tune_solver.py, the
         # active-set polish is always rejected by its acceptance guard in the
-        # warm-started RT loop (identical residuals) and costs ~30% of the
-        # step; the cold on_start solve keeps full polish for the warm seed.
+        # warm-started RT loop (identical residuals) while it costs a large
+        # share of the step; the cold on_start solve keeps full polish for
+        # the warm seed.
         # rho_updates=0 (skip the per-tick cold NS inversion) is faster but
         # must be validated closed-loop per deployment — see ForceAccPlugin.
         # rho_adapt_tol/rho_scale_min: gate cross-tick rho adaptation on

@@ -1,13 +1,15 @@
 """Matmul-precision policy.
 
-On TPU, f32 matmuls default to bf16-input passes. For bulk ML that is the
-right trade; for this framework's iterative numerics it is not: the
-Newton-Schulz inverse and the ADMM/KKT applies *diverge to NaN* under bf16
-inputs (measured on v5e: a humanoid WBC tick returns prim_res=NaN at
-default precision and 1.4e-4 with f32-pinned matmuls; the NaN then trips
-the zero-torque fallback). Every public step/solve entry point therefore
-pins `jax.default_matmul_precision("float32")` around its trace. bf16 stays
-available for bulk rollout physics where a caller opts in explicitly.
+The solver's iterative numerics need full float32 matmuls: the
+Newton-Schulz inverse and the ADMM/KKT applies diverge to NaN with
+bf16-input matmuls (a humanoid WBC tick returned prim_res=NaN at bf16 and
+1.4e-4 with float32-pinned matmuls; the NaN then trips the zero-torque
+fallback). On the GPU, float32 matmuls at default precision run as TF32 in
+the tensor cores, which keeps only ~10 mantissa bits. Every public
+step/solve entry point therefore pins `jax.default_matmul_precision(
+"float32")` (HIGHEST: no TF32) around its trace. Whether TF32 or TF32x3
+holds the health gates has not been measured. bf16 stays available
+for bulk rollout physics where a caller opts in explicitly.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import os
 import jax
 
 # "float32" (HIGHEST, default) or "bfloat16_3x" (HIGH: 3 compensated bf16
-# MXU passes, ~f32 mantissa coverage at a fraction of the cost). Plain
+# passes, ~f32 mantissa coverage at a fraction of the cost). Plain
 # "bfloat16" is known-bad here (NaNs, see module docstring). Overridable for
 # measured experiments via env or set_matmul_precision(); the RT default
 # stays full f32 until a sweep proves bf16_3x holds the closed-loop gates.
@@ -37,7 +39,7 @@ def get_matmul_precision() -> str:
 # friendly aliases -> jax DotAlgorithmPreset names
 _ALIASES = {
     "float32": "float32",               # HIGHEST: full f32 accumulate
-    "bfloat16_3x": "BF16_BF16_F32_X3",  # 3 compensated bf16 MXU passes
+    "bfloat16_3x": "BF16_BF16_F32_X3",  # 3 compensated bf16 passes
     "bfloat16_6x": "BF16_BF16_F32_X6",
     "bfloat16": "bfloat16",             # known-bad here (NaNs)
 }

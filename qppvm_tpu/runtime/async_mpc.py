@@ -1,6 +1,6 @@
 """Asynchronous plan/act pipeline: act on plan k while plan k+1 computes.
 
-Bridges declared MPC scale and real-time cadence (VERDICT r4 next #5): a
+Bridges declared MPC scale and real-time cadence: a
 4096-sample planning step takes hundreds of ms on one chip while the WBC
 tick runs at 1 kHz, so a deployable loop cannot block on the planner. JAX's
 async dispatch IS the pipeline: ``SamplingMPC.plan`` returns device

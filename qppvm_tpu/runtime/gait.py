@@ -273,7 +273,7 @@ class GaitScript:
         dependent); ticks past the last stride hold its settled refs."""
         if self._script is None:
             # no strides to run (n_strides == 0): the base refs are
-            # already a settled all-gates-on hold (ADVICE r4 #4)
+            # already a settled all-gates-on hold
             if self.n_strides == 0:
                 return self.refs
             self._start_stride(0, state, t0=i)

@@ -80,8 +80,8 @@ def scan_with_stream(body, carry, length: int, trace: TraceBuffer,
     """Device-resident loop with telemetry STREAMING to the host — the
     MatLogger-inside-the-RT-loop analog (the reference logs inside its
     1 kHz Xenomai loop, /root/reference/src/QPPVMPlugin.cpp:322-325; the
-    deployable TPU shape keeps the loop in one ``lax.scan`` where a plain
-    host-dispatch logger cannot reach).
+    deployable device-resident shape keeps the loop in one ``lax.scan``
+    where a plain host-dispatch logger cannot reach).
 
     ``body(carry, None) -> (carry, channels)`` is a ``lax.scan`` body whose
     per-tick output is a dict of named channel arrays. The loop runs as

@@ -50,7 +50,7 @@ class Handle:
 
 @dataclasses.dataclass
 class LoopStats:
-    """Step-latency accounting vs the 1 ms RT budget (the TPU analog of the
+    """Step-latency accounting vs the 1 ms RT budget (the analog of the
     Xenomai deadline, SURVEY.md §2b C22)."""
 
     latencies_s: np.ndarray

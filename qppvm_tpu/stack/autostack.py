@@ -141,7 +141,7 @@ class AutoStack:
         leading ``n_eq`` rows of C must be true equalities (u - l < tol).
         A miscounted n_eq (or a gated row drifting into the equality block)
         would silently hard-pin inequality rows to their lower bound with no
-        solver-visible signal (ADVICE r2 #1). Call from tests / once at
+        solver-visible signal. Call from tests / once at
         plugin construction — not inside jit."""
         import numpy as np
         n_eq = stack_data.n_eq

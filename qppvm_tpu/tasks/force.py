@@ -26,7 +26,7 @@ class ForceReg(Task):
     The stance wrenches have a nullspace (internal forces + load
     distribution) that NO reference task constrains — the reference stack
     (/root/reference/src/ForceAcc.cpp:131-133) leaves it to qpOASES's eps
-    regularization toward x = 0. The TPU solver's proximal term centers on
+    regularization toward x = 0. This repo's solver's proximal term centers on
     the *warm start* instead (needed for conditioning), so without this task
     the distribution random-walks tick-to-tick to bound vertices (measured:
     a centered quadruped drifting to fz = [272, 111, 10, 88] N), starving

@@ -3,7 +3,7 @@ from setuptools import find_packages, setup
 setup(
     name="qppvm_tpu",
     version="0.1.0",
-    description="TPU-native whole-body control + MPC engine (JAX/XLA/Pallas)",
+    description="Whole-body control + MPC engine in JAX (XLA/Pallas, GPU)",
     packages=find_packages(exclude=("tests",)),
     python_requires=">=3.10",
 )

@@ -1,4 +1,4 @@
-"""Async plan/act pipeline (VERDICT r4 next #5): the control loop acts on
+"""Async plan/act pipeline: the control loop acts on
 the committed plan while the next plan computes — never blocking the tick
 on the planner.
 

@@ -1,4 +1,4 @@
-"""Sustained locomotion: the quadruped static walk (VERDICT r3 next #2).
+"""Sustained locomotion: the quadruped static walk.
 
 Round 3 proved ONE contact-switch cycle; this chains 8 strides (2 full
 crawl-gait cycles, each foot swinging twice, 6 cm per stride) into a walk:

@@ -1,12 +1,13 @@
 """Driver-contract tests: entry() compiles single-device; dryrun_multichip
 executes on the virtual 8-device CPU mesh."""
+import pathlib
 import sys
 
 import jax
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
 def test_entry_compiles_and_runs():

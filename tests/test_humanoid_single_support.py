@@ -1,6 +1,5 @@
 """Humanoid single-support contact switch (the flagship config-4 analog of
-the quadruped leg-lift e2e — VERDICT r2 next-#1 'humanoid single-support
-analog'): weight shift over one sole, gate-ramped unload, 4 cm swing-sole
+the quadruped leg-lift e2e): weight shift over one sole, gate-ramped unload, 4 cm swing-sole
 lift held on ONE leg (full weight on the stance sole's 6D wrench with CoP
 moment bounds), lower, gate-ramped reload — zero solver failures, upright
 throughout. Driven by the same LegLiftScript primitive as the quadruped

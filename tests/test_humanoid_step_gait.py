@@ -1,4 +1,4 @@
-"""Humanoid step-in-place through the GAIT engine (VERDICT r3 next #2b).
+"""Humanoid step-in-place through the GAIT engine.
 
 One full stride of the crawl-gait chain (runtime/gait.py) on the flagship
 humanoid: weight shift -> unload -> 4 cm swing-sole lift -> lower ->

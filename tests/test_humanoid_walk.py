@@ -1,10 +1,9 @@
 """The flagship humanoid walks: >= 4 chained strides through the gait
-engine, estimator-driven, zero solver failures (VERDICT r4 next #2 — the
+engine, estimator-driven, zero solver failures (the
 round-4 humanoid could execute exactly one stride; chaining destabilized
 at the 2nd weight shift).
 
-STRICT XFAIL pinning the round-5 frontier (VERDICT r4 next #7 semantics:
-a red test that flips green when the capability lands, loud on
+STRICT XFAIL pinning the round-5 frontier (a red test that flips green when the capability lands, loud on
 regression-toward AND on silent fixes). Round 5 SOLVED the 2nd-weight-
 shift failure itself: with the full recipe below the double-distance
 right-to-left transfer completes cleanly — CoM tracks the reference to

@@ -1,6 +1,6 @@
 """Published robot models end-to-end: Gymnasium's MuJoCo ant + humanoid.
 
-VERDICT r2 missing #3: run a real PUBLISHED robot description file (not a
+Run a real PUBLISHED robot description file (not a
 synthetic inline model) through the whole stack. This image ships no URDF
 robot descriptions, but Gymnasium ships the classic published MJCF robots;
 qppvm_tpu.model.mjcf converts MuJoCo's own compilation of those files.

@@ -72,7 +72,7 @@ def test_mppi_improves_over_nominal(setup):
 def test_humanoid_rollout_health_under_pushes():
     """The flagship config-5 path: pushed humanoid MPC rollouts must pass
     their per-step QP health check at the bench_mpc settings (round 1
-    shipped with solver_fail_frac=1.0 here — VERDICT.md weak #1). Also
+    shipped with solver_fail_frac=1.0 here). Also
     guards the rho carry policy + force-nullspace regularization fixes."""
     model = zoo.humanoid()
     contacts = ("l_sole", "r_sole")

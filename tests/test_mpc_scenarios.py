@@ -1,4 +1,4 @@
-"""Config-5 widening (VERDICT r2 missing #2 / next #5): domain-randomized
+"""Config-5 widening: domain-randomized
 contact/disturbance rollouts and the footstep-recovery decision channel.
 
 - scenario randomization beyond pushes: per-rollout TRUE-model mass scale

@@ -117,8 +117,7 @@ def test_native_executor_drives_wbc_loop():
     """Close the native RT executor into a real control loop: the jitted
     ForceAcc step runs as the executor's tick callback against the contact
     sim, with the wait-free ring carrying the trace — the XCM-RT-thread
-    analog e2e (/root/reference/src/QPPVMPlugin.cpp:308 + MatLogger).
-    VERDICT.md round 1 weak #9."""
+    analog e2e (/root/reference/src/QPPVMPlugin.cpp:308 + MatLogger)."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -163,7 +162,7 @@ def test_native_executor_drives_wbc_loop():
         return True
 
     # CPU step is ~5-20 ms; pace at 50 ms so the budget is realistic here
-    # (the 1 ms budget is a TPU/device-resident target, measured in bench.py)
+    # (the 1 ms budget is a device-resident target, measured in bench.py)
     ex = NativeExecutor(period_s=0.05)
     done = ex.run(tick, n_ticks=40)
     stats = ex.stats()

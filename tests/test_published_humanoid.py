@@ -1,5 +1,5 @@
 """Closed-loop control of the PUBLISHED Gymnasium humanoid.xml
-(VERDICT r3 next #7 — the reference runs its real robot config in the
+(the reference runs its real robot config in the
 control loop, /root/reference/src/QPPVMPlugin.cpp:50-51).
 
 The published humanoid has SPHERE feet and NO ankle joints: it cannot be
@@ -116,7 +116,7 @@ def test_published_humanoid_forceacc_stand():
     model, contacts, robot_c, plugin = _build(with_plugin=True)
     t_ctrl, n_fail, com_err = _ticks_upright(model, robot_c, plugin,
                                              contacts, 1500)
-    # Balance extension, with ABSOLUTE bars (VERDICT r4 weak #4 — the
+    # Balance extension, with ABSOLUTE bars (the
     # old 2x-relative bar could pass at 1.2 s vs 0.6 s, and the CoM was
     # checked only over the first 300 ms). Measured deterministic values:
     # passive 287 ticks, controlled 611 ticks, full-window max CoM-over-

@@ -262,7 +262,7 @@ def test_eq_elim_near_parallel_equality_rows():
     the Gram delta shift (1e-6) is comparable to the small eigenvalue
     lambda_2 = 1 - cos(1e-3) ~ 5e-7, so the unrefined projector leaks O(1)
     in the weak direction — the Newton refinements must keep the physical
-    equality residual tight anyway (ADVICE r2 #2; only exact duplicates were
+    equality residual tight anyway (only exact duplicates were
     covered before)."""
     n = 12
     key = jax.random.PRNGKey(42)

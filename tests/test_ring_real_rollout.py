@@ -1,5 +1,5 @@
 """Ring-horizon multiple shooting over the REAL WBC rollout tick
-(VERDICT r3 next #9: `ring_horizon` composed with the actual rollout carry —
+(`ring_horizon` composed with the actual rollout carry —
 state + refs + warm QP pytree — on the 8-virtual-device mesh, where
 ppermute payload size and warm-state validity across segment boundaries are
 the actual risks, not toy dynamics).
@@ -87,5 +87,5 @@ def test_ring_defect_shrinks_and_payload_reported(setup):
     # the scaling decision (ring vs local scan) is evidence-based.
     payload = _payload_bytes(carry0)
     print(f"ring carry payload: {payload / 1024:.1f} KiB")
-    # KKT inverses dominate; keep the payload sane for ICI (one hop/sweep)
+    # KKT inverses dominate; keep the payload sane (one hop/sweep)
     assert payload < 8 * 1024 * 1024

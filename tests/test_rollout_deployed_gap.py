@@ -1,4 +1,4 @@
-"""Quantify the DEPLOYED-params planner/plant gap (VERDICT r4 next #4).
+"""Quantify the DEPLOYED-params planner/plant gap.
 
 tests/test_rollout_physics.py pins exact one-step equivalence at MATCHED
 stiction params; this test measures what deployment actually runs: the

@@ -1,4 +1,4 @@
-"""Planner physics == plant physics (VERDICT r3 weak #1 / next #4).
+"""Planner physics == plant physics.
 
 The MPC rollout's ground contact is the SAME function the SimRobot plant
 integrates (``runtime.robot_interface.ground_forces`` — stiction anchors,

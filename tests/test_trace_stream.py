@@ -1,4 +1,4 @@
-"""Telemetry streaming OUT of the device-resident loop (VERDICT r3 next #8).
+"""Telemetry streaming OUT of the device-resident loop.
 
 The deployable 1 ms shape is the on-device ``lax.scan`` closed loop
 (bench_rt_loop.py); the reference logs INSIDE its 1 kHz RT loop

@@ -1,4 +1,4 @@
-"""Debug the humanoid MPC rollout QP health failure (VERDICT r1 #1).
+"""Debug the humanoid MPC rollout QP health failure.
 
 Sweeps rollout QP profiles at the bench_mpc humanoid config on CPU and
 prints health (worst relative primal residual, failure flag) per profile.
@@ -9,7 +9,9 @@ import itertools
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from qppvm_tpu.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 

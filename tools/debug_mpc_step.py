@@ -4,7 +4,9 @@ import dataclasses
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from qppvm_tpu.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

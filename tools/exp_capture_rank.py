@@ -1,5 +1,5 @@
 """Capture-step library ranking WITH the ICP terminal cost, checked
-against executed outcomes (VERDICT r4 next #3: the argmin must run over
+against executed outcomes (the argmin must run over
 the FULL library including null and the downwind re-plant, choose a step,
 and match execution).
 

@@ -14,8 +14,9 @@ import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from qppvm_tpu.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import os
 import sys

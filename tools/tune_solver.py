@@ -1,4 +1,4 @@
-"""Sweep RT-solver knobs on real TPU: throughput of the flagship humanoid
+"""Sweep RT-solver knobs on the GPU: throughput of the flagship humanoid
 WBC step (bench.py's workload) per solver configuration.
 
 Usage:  python tools/tune_solver.py [--batch 1024] [--reps 5]
@@ -14,12 +14,9 @@ import json
 import time
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import jax.numpy as jnp
 
+from qppvm_tpu.device import enable_compile_cache, require_gpu
 from qppvm_tpu.model import zoo
 from qppvm_tpu.plugins.force_acc import ForceAccPlugin
 
@@ -47,9 +44,8 @@ CONFIGS = {
                                                         rho_updates=0)),
     "i60_nopolish_ru0": dict(iters=60, solver_opts=dict(polish_rounds=0,
                                                         rho_updates=0)),
-    # Matmul-precision experiments: "high" = 3 compensated bf16 MXU passes
-    # (~f32 mantissa coverage), X6 = 6 passes (full f32 emulation). Plain
-    # bf16 is known-NaN (precision.py docstring).
+    # Matmul-precision experiments: "high" = 3 compensated bf16 passes
+    # (~f32 mantissa coverage), X6 = 6 passes (full f32 emulation).
     "i30_nopolish_px6": dict(iters=30, solver_opts=dict(polish_rounds=0),
                              precision="BF16_BF16_F32_X6"),
     "i30_nopolish_phigh": dict(iters=30, solver_opts=dict(polish_rounds=0),
@@ -144,6 +140,8 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", type=str, default=None)
     args = ap.parse_args()
+    require_gpu()
+    enable_compile_cache()
     for name, cfg in CONFIGS.items():
         if args.only and args.only not in name:
             continue
